@@ -2,8 +2,8 @@
 ``examples/server_heat/mpc_simulation.jl``: nx = nu = 20, N = 10, d = 2,
 tol = 1e-3, 20 MPC steps, M repeats).
 
-The TPU twist: instead of running the M repeats sequentially, they are the
-batch axis — all repeats advance in lockstep on one chip.
+The batched twist: instead of running the M repeats sequentially, they are
+the batch axis — all repeats advance in lockstep on one device.
 
 Usage: python examples/mpc_simulation.py [--cpu] [--repeats 15] [--steps 20]
 """

@@ -11,10 +11,9 @@ processes:
 
 Per-solve state never crosses processes under dp sharding; the only
 cross-process traffic is the termination all-reduce (`jnp.all(done)` each
-iteration), so the DCN extrapolation is: per iteration one 1-bit all-reduce
+iteration), so the extrapolation is: per iteration one 1-bit all-reduce
 + loop-control sync, amortized over B_local lanes of solver math — the same
-structure real 2-host TPU pods run over DCN, where that collective is
-microseconds against the ~ms iteration body.
+structure a real 2-host run has over its network.
 
 Usage: python examples/multihost_eff.py            # driver (runs workers)
        python examples/multihost_eff.py worker <pid> <nproc> <port> <out>
@@ -161,17 +160,15 @@ def main():
     payload = {
         "config": {"model": f"server_heat N={N} nx={NX} d={D}", "tol": TOL,
                    "B_local": B_LOCAL, "solves": N_SOLVES,
-                   "proxy": "2 jax.distributed CPU processes (DCN analogue)"},
+                   "proxy": "2 jax.distributed CPU processes"},
         "one_process": r1,
         "two_process": r2,
         "weak_scaling_efficiency": round(eff, 4),
-        "dcn_extrapolation": (
+        "extrapolation": (
             "dp sharding keeps all per-solve state process-local; the only "
             "cross-process traffic is the per-iteration termination "
-            "all-reduce of one bool per lane batch plus loop control. On "
-            "real 2-host v5e over DCN that collective is O(10 us) against "
-            "a ~ms iteration body, so the CPU-proxy efficiency measured "
-            "here is a lower bound for the TPU case."
+            "all-reduce of one bool per lane batch plus loop control "
+            "(not measured on accelerators)."
         ),
     }
     path = os.path.join(outdir, "multihost_eff.json")

@@ -1,7 +1,7 @@
 // High-performance CPU solver for multistage risk-averse optimal control on
 // uniform scenario trees — the native baseline tier of spock_tpu.
 //
-// Role: the independent, dependency-free CPU counterpart of the JAX/TPU
+// Role: the independent, dependency-free CPU counterpart of the JAX
 // engine (filling the niche the reference delegates to external JuMP
 // backends, /root/reference/src/models/model_mosek.jl).  It implements the
 // same splitting — Chambolle-Pock with Riccati/kernel/cone projections,

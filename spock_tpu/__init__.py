@@ -1,26 +1,25 @@
-"""spock_tpu — a TPU-native engine for multistage risk-averse optimal control
+"""spock_tpu — a batched JAX engine for multistage risk-averse optimal control
 on scenario trees.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability surface of
+A from-scratch JAX/XLA re-design of the capability surface of
 ``kul-optec/spock.jl``: scenario trees with uniform branching, linear
 tree-indexed dynamics, quadratic costs, conic risk measures (AV@R, total
 variation, ...), box constraints, solved by a Chambolle-Pock primal-dual
 iteration optionally accelerated by SuperMann + Anderson (the SPOCK
 algorithm).  Designed batch-first: thousands of independent MPC solves per
-chip, sharded over a device mesh.
+device, sharded over a device mesh.
 """
 
 import os as _os
 
 import jax as _jax
 
-# Full-f32 matmuls framework-wide.  On TPU the DEFAULT matmul precision
-# demotes f32 operands to one bf16 pass (~8 mantissa bits): the solver's
-# fixed-point residual then floors near ~1e-3 and warm-started lanes whose
-# termination threshold is the absolute tol sit AT that floor — measured on
-# chip as individual farm lanes stalling for 10k+ iterations (and as the
-# round-3 engine-vs-oracle error of ~5e-3 at tol=1e-3).  These are small
-# matmuls on a DMA/VPU-bound path; the MXU pass-count cost is noise.
+# Full-f32 matmuls framework-wide.  On a GPU the DEFAULT precision lets XLA
+# run float32 dots in TF32 (~10 mantissa bits): the solver's fixed-point
+# residual then floors near the 1e-3 tolerance, and warm-started lanes whose
+# termination threshold is the absolute tol can stall at that floor.
+# "highest" keeps f32 dots in full float32; the products here are small
+# (feature dims of tens), so little is given up.
 # Override with SPOCK_MATMUL_PRECISION=default|float32|highest if needed.
 _jax.config.update(
     "jax_default_matmul_precision",

@@ -6,7 +6,7 @@ qnewton_directions/anderson.jl``): window-m history of residual differences
 
     d = -r - dP^T gamma,   gamma = argmin || dR^T gamma - r ||_2.
 
-TPU-motivated departures from the reference:
+Departures from the reference:
 
 * **History = tuple of m pytree rows** (not a shifted [B, m, K] tensor):
   separate rows keep clean per-leaf layouts, the Gram/projection reductions
@@ -31,9 +31,8 @@ from ..zv import tmap
 def _solve3(A, b):
     """Closed-form batched 3x3 solve via the adjugate (Cramer).
 
-    [B, 3, 3] systems: jnp.linalg.solve lowers to a multi-kernel LU chain on
-    TPU; the explicit formula is a handful of fused elementwise ops on [B]
-    scalars (measured ~5x cheaper inside the SuperMann body)."""
+    [B, 3, 3] systems: jnp.linalg.solve lowers to a batched LU chain; the
+    explicit formula is a handful of fused elementwise ops on [B] scalars."""
     a, bb, c = A[:, 0, 0], A[:, 0, 1], A[:, 0, 2]
     d, e, f = A[:, 1, 0], A[:, 1, 1], A[:, 1, 2]
     g, h, i = A[:, 2, 0], A[:, 2, 1], A[:, 2, 2]
@@ -68,10 +67,8 @@ def direction_flat(MR, MP, r, valid=None):
     what lets the async MPC farm refill a lane without touching the
     histories.
 
-    Bandwidth notes (this is the hottest glue in the SuperMann body): the
-    Gram and projection run as batched matmuls — einsum
-    ``bmk,bnk->bmn`` materializes the broadcast product ([B, m, m, K]!)
-    on TPU, which measured ~5x the bytes actually needed.
+    Bandwidth note: the Gram and projection run as batched matmuls, so no
+    [B, m, m, K] broadcast product is ever formed.
     """
     m = MR.shape[1]
     dtype = MR.dtype

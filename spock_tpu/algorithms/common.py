@@ -16,7 +16,6 @@ import jax.numpy as jnp
 
 from ..ops.linop import apply_L, apply_LT, metric_apply
 from ..ops.prox import prox_f, prox_h_conj
-from ..ops import pallas_kernels, pallas_sweep
 from ..zv import Dual, Primal, inf_norm, lincomb, sub, tmap, vdot
 
 
@@ -45,45 +44,17 @@ def blincomb(a, x, b, y):
     )
 
 
-def _cp_sweep_xla(data, meta, z, v, gamma, sigma, x0, prox_h):
-    z1 = tmap(lambda a, b: a - gamma * b, z, apply_LT(data, meta, v))
-    zbar = prox_f(data, meta, z1, gamma, x0)
-    z_refl = lincomb(2.0, zbar, -1.0, z)
-    v1 = tmap(lambda a, b: a + sigma * b, v, apply_L(data, meta, z_refl))
-    return zbar, prox_h(v1)
-
-
-def cp_sweep_ref(data, meta, z: Primal, v: Dual, gamma, sigma, x0):
-    """Pure-jnp CP sweep — no Pallas kernel anywhere, independent of the
-    SPOCK_PALLAS_SWEEP / device dispatch.  The oracle the megakernel parity
-    tests compare against (and callers that must pin the reference path)."""
-    return _cp_sweep_xla(
-        data, meta, z, v, gamma, sigma, x0,
-        lambda v1: prox_h_conj(data, meta, v1, sigma),
-    )
-
-
 def cp_sweep(data, meta, z: Primal, v: Dual, gamma, sigma, x0):
     """One Chambolle-Pock sweep: returns (zbar, vbar).
 
     zbar = prox_f(z - gamma L' v); vbar = prox_h*(v + sigma L (2 zbar - z)).
     (cf. update_zbar!/update_vbar!, ``src/model_algorithms/cp.jl:5-32``)
     """
-    if pallas_sweep.enabled() and pallas_sweep.supported(meta, data):
-        return pallas_sweep.cp_sweep_fused(
-            data, meta, z, v, gamma, sigma, x0,
-            interpret=jax.default_backend() == "cpu",
-        )
-    if pallas_kernels.ENABLED and pallas_kernels.supported(meta):
-        def prox_h(v1):
-            return pallas_kernels.prox_h_conj_fused(
-                data, meta, v1, sigma,
-                interpret=jax.default_backend() == "cpu",
-            )
-    else:
-        def prox_h(v1):
-            return prox_h_conj(data, meta, v1, sigma)
-    return _cp_sweep_xla(data, meta, z, v, gamma, sigma, x0, prox_h)
+    z1 = tmap(lambda a, b: a - gamma * b, z, apply_LT(data, meta, v))
+    zbar = prox_f(data, meta, z1, gamma, x0)
+    z_refl = lincomb(2.0, zbar, -1.0, z)
+    v1 = tmap(lambda a, b: a + sigma * b, v, apply_L(data, meta, z_refl))
+    return zbar, prox_h_conj(data, meta, v1, sigma)
 
 
 def cp_sweep_metric(data, meta, z: Primal, v: Dual, gamma, sigma, x0):
@@ -91,24 +62,8 @@ def cp_sweep_metric(data, meta, z: Primal, v: Dual, gamma, sigma, x0):
     the per-lane reductions SuperMann consumes: returns ``(zbar, vbar, Mrz,
     Mrv, rnorm_sq, nMrz, nMrv)`` with ``(Mrz, Mrv) = M (z - zbar, v -
     vbar)``, ``rnorm_sq = <r, M r>`` and nMrz/nMrv the inf-norms of M r's
-    halves.  On the megakernel path everything rides one Pallas launch; the
-    fallback is cp_sweep + metric_apply + XLA reductions."""
-    if pallas_sweep.enabled() and pallas_sweep.supported(meta, data):
-        return pallas_sweep.cp_sweep_metric_fused(
-            data, meta, z, v, gamma, sigma, x0,
-            interpret=jax.default_backend() == "cpu",
-        )
+    halves."""
     zbar, vbar = cp_sweep(data, meta, z, v, gamma, sigma, x0)
-    return _sweep_metric_tail(data, meta, z, v, zbar, vbar, gamma, sigma)
-
-
-def cp_sweep_metric_ref(data, meta, z, v, gamma, sigma, x0):
-    """Pure-jnp :func:`cp_sweep_metric` (see :func:`cp_sweep_ref`)."""
-    zbar, vbar = cp_sweep_ref(data, meta, z, v, gamma, sigma, x0)
-    return _sweep_metric_tail(data, meta, z, v, zbar, vbar, gamma, sigma)
-
-
-def _sweep_metric_tail(data, meta, z, v, zbar, vbar, gamma, sigma):
     rz, rv = sub(z, zbar), sub(v, vbar)
     Mrz, Mrv = metric_apply(data, meta, rz, rv, gamma, sigma)
     rnorm_sq = vdot(rz, Mrz, 1) + vdot(rv, Mrv, 1)
@@ -129,59 +84,23 @@ def candidate_sweep(
     Returns ``(wbar, ubar, Mrz, Mrv, rnorm_sq, nMrz, nMrv, rho_dot, nMdz,
     nMdv)`` — the first seven as :func:`cp_sweep_metric` at the candidate
     point, plus ``rho_dot = <r~, M d>`` (sp.jl:193-222's rho correction) and
-    the inf-norms of M d's halves.  One Pallas launch on the megakernel
-    path; M d is never materialized there.  On the fallback path ``Md`` may
-    carry a precomputed ``(Mdz, Mdv)`` — d is trial-independent, so the
-    caller hoists this L/L' pair out of the backtracking loop."""
-    if pallas_sweep.enabled() and pallas_sweep.supported(meta, data):
-        return pallas_sweep.candidate_sweep_fused(
-            data, meta, z, v, dz, dv, tau, gamma, sigma, x0,
-            interpret=jax.default_backend() == "cpu",
-        )
-    return _candidate_sweep_tail(
-        data, meta, z, v, dz, dv, tau, gamma, sigma, x0, Md, cp_sweep
-    )
-
-
-def candidate_sweep_ref(
-    data, meta, z, v, dz, dv, tau, gamma, sigma, x0, Md=None
-):
-    """Pure-jnp :func:`candidate_sweep` (see :func:`cp_sweep_ref`)."""
-    return _candidate_sweep_tail(
-        data, meta, z, v, dz, dv, tau, gamma, sigma, x0, Md, cp_sweep_ref
-    )
-
-
-def _candidate_sweep_tail(
-    data, meta, z, v, dz, dv, tau, gamma, sigma, x0, Md, sweep
-):
+    the inf-norms of M d's halves.  ``Md`` may carry a precomputed ``(Mdz,
+    Mdv)``: d is trial-independent, so the caller hoists this L/L' pair out
+    of the backtracking loop."""
     tau = jnp.asarray(tau)
     w = tmap(lambda a, b: a + bexpand(tau, a) * b, z, dz)
     u = tmap(lambda a, b: a + bexpand(tau, a) * b, v, dv)
-    wbar, ubar = sweep(data, meta, w, u, gamma, sigma, x0)
-    rw, ru = sub(w, wbar), sub(u, ubar)
-    Mrz, Mrv = metric_apply(data, meta, rw, ru, gamma, sigma)
-    rnorm_sq = vdot(rw, Mrz, 1) + vdot(ru, Mrv, 1)
+    wbar, ubar, Mrz, Mrv, rnorm_sq, nMrz, nMrv = cp_sweep_metric(
+        data, meta, w, u, gamma, sigma, x0
+    )
     Mdz, Mdv = Md if Md is not None else metric_apply(
         data, meta, dz, dv, gamma, sigma
     )
-    rho_dot = vdot(rw, Mdz, 1) + vdot(ru, Mdv, 1)
+    rho_dot = vdot(sub(w, wbar), Mdz, 1) + vdot(sub(u, ubar), Mdv, 1)
     return (
-        wbar, ubar, Mrz, Mrv, rnorm_sq,
-        inf_norm(Mrz, batch_ndim=1), inf_norm(Mrv, batch_ndim=1),
-        rho_dot,
+        wbar, ubar, Mrz, Mrv, rnorm_sq, nMrz, nMrv, rho_dot,
         inf_norm(Mdz, batch_ndim=1), inf_norm(Mdv, batch_ndim=1),
     )
-
-
-def metric_pair(data, meta, z: Primal, v: Dual, gamma, sigma):
-    """M (z, v) — fused single-kernel when the megakernel path is on."""
-    if pallas_sweep.enabled() and pallas_sweep.supported(meta, data):
-        return pallas_sweep.metric_apply_fused(
-            data, meta, z, v, gamma, sigma,
-            interpret=jax.default_backend() == "cpu",
-        )
-    return metric_apply(data, meta, z, v, gamma, sigma)
 
 
 def residual_norms(data, meta, dz: Primal, dv: Dual, gamma, sigma):

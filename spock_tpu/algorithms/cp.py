@@ -60,7 +60,7 @@ def run_cp(
     x0: [B, nx].  Returns a :class:`SolveResult`.
 
     record=True keeps a per-iteration (xi1, xi2) trace in ``result.residuals``
-    — the TPU equivalent of the reference's LOG verbose mode (``cp.jl:82-97``,
+    — the batched equivalent of the reference's LOG verbose mode (``cp.jl:82-97``,
     which appends residuals to .dat files).
 
     constrain: optional ``tree -> tree`` sharding hook (e.g.

@@ -42,9 +42,9 @@ from .common import (
     candidate_sweep,
     check_termination,
     cp_sweep_metric,
-    metric_pair,
     register,
 )
+from ..ops.linop import metric_apply
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,8 +118,8 @@ class SPCarry:
     # candidate's sweep/metric results ARE the next iteration's (zbar, vbar,
     # ||r||, inf-norms) for that lane — reuse instead of recomputing (1 sweep
     # + 1 metric application saved per iteration in warm steady state).
-    # Validity is per lane; the XLA fallback path uses it batch-wide
-    # (lax.cond on all-valid), the fused TPU step kernel selects per lane.
+    # Validity is tracked per lane and used batch-wide (lax.cond on
+    # all-valid).
     cache_valid: Any  # [B] bool
     zbar_c: Primal
     vbar_c: Dual
@@ -147,18 +147,10 @@ def _make_candidate(
     """Build the one-backtracking-trial closure at per-lane step size tau.
 
     Returns the updated acceptance state plus the candidate's sweep results
-    (the peeled tau=1 trial reuses them as the next iteration's cache).  One
-    fused launch on the megakernel path: candidate construction, sweep,
-    residual metric, <r~, M d> and every norm the K1/K2 tests consume
-    (common.candidate_sweep)."""
-    from ..ops import pallas_sweep
-
-    # d is trial-independent: on the fallback (XLA-composed) path hoist the
-    # M d = metric_apply(dz, dv) L/L' pair out of the backtracking trials
-    # (the megakernel recomputes it in-VMEM for free).
-    Md = None
-    if not (pallas_sweep.enabled() and pallas_sweep.supported(meta, data)):
-        Md = metric_pair(data, meta, dz, dv, gamma, sigma)
+    (the peeled tau=1 trial reuses them as the next iteration's cache)."""
+    # d is trial-independent: hoist the M d = metric_apply(dz, dv) L/L' pair
+    # out of the backtracking trials.
+    Md = metric_apply(data, meta, dz, dv, gamma, sigma)
 
     def candidate(tau, looping, b_z_acc, b_v_acc, b_r_safe, b_xi1, b_xi2):
         (
@@ -265,8 +257,7 @@ def sp_init(
     if opts.direction == "anderson":
         # structured newest-first histories: one (Primal, Dual)-shaped pytree
         # per window row, leaves [B, m, *event].  No flat concat across the
-        # node axis — shardable, and the layout the fused TPU step kernel
-        # consumes directly.
+        # node axis, so the histories shard like the iterates.
         def hzeros(l):
             return jnp.zeros((B, opts.aa_window) + l.shape[1:], dtype)
 
@@ -343,10 +334,8 @@ def sp_body(
         def cached_sweep(_):
             return (c.zbar_c, c.vbar_c, c.rnorm_c, c.nMrz_c, c.nMrv_c)
 
-        # batch-wide cache use on this (XLA-composed) path: recomputing is
-        # always CORRECT, so one any-lane-invalid triggers a fresh sweep for
-        # everyone.  The fused TPU step kernel selects cached results per
-        # lane instead.
+        # batch-wide cache use: recomputing is always CORRECT, so one
+        # any-lane-invalid triggers a fresh sweep for everyone.
         zbar, vbar, rnorm, nMrz, nMrv = jax.lax.cond(
             jnp.all(c.cache_valid), cached_sweep, fresh_sweep, None
         )
@@ -390,7 +379,7 @@ def sp_body(
             )
             s_flat = jnp.where(hp, _ravel_pair(*c.s_prev), 0.0)
             sz, sv = _unravel_pair(meta, s_flat, c.z, c.v)
-            Msz, Msv = metric_pair(data, meta, sz, sv, gamma, sigma)
+            Msz, Msv = metric_apply(data, meta, sz, sv, gamma, sigma)
             ps_flat = _ravel_pair(Msz, Msv)
             d_flat, dirstate = broyden.direction(
                 c.dirstate, r_flat, s_flat, y_flat, ps_flat, opts.broyden_mem
@@ -507,326 +496,6 @@ def sp_body(
     return body
 
 
-# ---------------------------------------------------------------------------
-# Fused whole-iteration TPU path (ops/pallas_spstep): ONE Pallas launch per
-# tau=1 SuperMann iteration on a packed (W, Y, S) layout.
-# ---------------------------------------------------------------------------
-
-
-@register
-@dataclasses.dataclass(frozen=True)
-class SPCarryF:
-    """Carry of the fused step path.  Iterate-like state is PACKED
-    (pallas_spstep.pack_pair trios); the Anderson window is 3 row-trios in
-    phase-slot storage (the row written at iteration t lives in slot
-    t mod 3; the 3-phase loop unroll makes the slot static per call site)."""
-
-    x0: Any
-    zv: Any  # packed (z, v) trio
-    cache: Any  # packed sweep cache (prev tau=1 candidate results)
-    r_prev: Any  # packed trio
-    s_prev: Any  # packed trio
-    MR: Any  # tuple of 3 packed trios
-    MP: Any  # tuple of 3 packed trios
-    r_safe: Any  # [B]
-    res0: Any  # [B, 2]
-    done: Any  # [B]
-    niter: Any  # [B]
-    xi1: Any
-    xi2: Any
-    it: Any  # scalar
-    hist: Any
-    cache_valid: Any  # [B]
-    rnorm_c: Any  # [B]
-    nMrz_c: Any
-    nMrv_c: Any
-
-
-def root_u_carry(meta: ProblemMeta, sp):
-    """Root input u_1 from either carry flavor (farm drivers)."""
-    if isinstance(sp, SPCarryF):
-        from ..ops import pallas_spstep
-
-        return pallas_spstep.root_u(meta, sp.zv)
-    return sp.z.u[:, :, 0]
-
-
-def use_fused_step(data, meta, opts: SuperMannOpts, constrain=None) -> bool:
-    """The fused step covers the production configuration: Anderson window 3,
-    no K0, unsharded iterates, megakernel-supported problem class."""
-    from ..ops import pallas_spstep
-
-    return (
-        opts.direction == "anderson"
-        and not opts.k0
-        and opts.aa_window == 3
-        and constrain is None
-        and pallas_spstep.enabled()
-        and pallas_spstep.supported(meta, data)
-    )
-
-
-def sp_init_fused(
-    meta: ProblemMeta,
-    x0,
-    z0: Primal,
-    v0: Dual,
-    opts: SuperMannOpts = SuperMannOpts(),
-    max_iter: int = 1000,
-    record: bool = False,
-) -> SPCarryF:
-    from ..ops import pallas_spstep
-
-    B = x0.shape[0]
-    dtype = x0.dtype
-    zv = pallas_spstep.pack_pair(meta, z0, v0)
-    zt = pallas_spstep.zero_trio(meta, B, dtype)
-    return SPCarryF(
-        x0=x0,
-        zv=zv,
-        cache=zt,
-        r_prev=zt,
-        s_prev=zt,
-        MR=(zt, zt, zt),
-        MP=(zt, zt, zt),
-        r_safe=jnp.full((B,), jnp.inf, dtype),
-        res0=jnp.full((B, 2), -jnp.inf, dtype),
-        done=jnp.zeros((B,), bool),
-        niter=jnp.zeros((B,), jnp.int32),
-        xi1=jnp.full((B,), jnp.inf, dtype),
-        xi2=jnp.full((B,), jnp.inf, dtype),
-        it=jnp.zeros((), jnp.int32),
-        # +2 rows: the 3-phase unroll can overshoot max_iter by two
-        hist=jnp.zeros((max_iter + 2 if record else 0, B, 3), dtype),
-        cache_valid=jnp.zeros((B,), bool),
-        rnorm_c=jnp.zeros((B,), dtype),
-        nMrz_c=jnp.zeros((B,), dtype),
-        nMrv_c=jnp.zeros((B,), dtype),
-    )
-
-
-def sp_body_fused(
-    data: ProblemData,
-    meta: ProblemMeta,
-    tol,
-    opts: SuperMannOpts,
-    phase: int,
-    max_iter: int,
-    gamma=None,
-    sigma=None,
-    record: bool = False,
-):
-    """One fused SuperMann iteration at history phase ``phase`` (= it mod 3,
-    static).  Drive with a 3-phase unrolled loop so the aging history rows
-    pass through the carry untouched."""
-    from ..ops import pallas_spstep
-
-    if gamma is None or sigma is None:
-        step = 0.99 / jnp.sqrt(data.L_sq)
-        gamma = sigma = step
-    m = opts.aa_window
-    a1, a2 = (phase - 1) % m, (phase - 2) % m
-    interp = jax.default_backend() == "cpu"
-
-    # Backtracking via kernel retrials needs the kernel to take per-lane
-    # tau (lane-packed flavor only).  In interpret mode the kernel lowers
-    # to a huge XLA emulation graph, and embedding it in the backtracking
-    # while_loop makes every eager body() dispatch recompile it (minutes) —
-    # so interpret runs keep the per-op cond path unless a test forces the
-    # retrial path (SPOCK_FORCE_RETRIAL=1).
-    import os as _os
-
-    kernel_tau = getattr(pallas_spstep, "KERNEL_TAU", False) and (
-        not interp or _os.environ.get("SPOCK_FORCE_RETRIAL") == "1"
-    )
-
-    def body(c: SPCarryF) -> SPCarryF:
-        B = c.done.shape[0]
-        dtype = c.r_safe.dtype
-        active = (~c.done) & (c.it < max_iter)
-        q_pow = jnp.asarray(opts.q, dtype) ** c.niter.astype(dtype)
-
-        def pack_scal(act, cache, r_safe, rnc, nmzc, nmvc, tau):
-            return jnp.stack(
-                [
-                    act.astype(dtype),
-                    (c.niter >= 1).astype(dtype),  # valid1 == has_prev
-                    (c.niter >= 2).astype(dtype),  # valid2
-                    cache.astype(dtype),
-                    r_safe,
-                    q_pow,
-                    rnc,
-                    nmzc,
-                    nmvc,
-                    tau,
-                ],
-                axis=-1,
-            )
-
-        def step(act, cache, r_safe, rnc, nmzc, nmvc, tau):
-            return pallas_spstep.sp_step_fused(
-                data, meta, c.zv, c.cache, c.r_prev, c.s_prev,
-                c.MR[a1], c.MR[a2], c.MP[a1], c.MP[a2],
-                c.x0,
-                pack_scal(act, cache, r_safe, rnc, nmzc, nmvc, tau),
-                gamma, sigma,
-                c1=float(opts.c1), sigma_k2=float(opts.sigma_k2),
-                lam=float(opts.lam), lam_sp=float(opts.lam_sp),
-                interpret=interp,
-            )
-
-        ones = jnp.ones((B,), dtype)
-        z_new, w, r, s, y, p, sc = step(
-            active, c.cache_valid, c.r_safe, c.rnorm_c, c.nMrz_c, c.nMrv_c,
-            ones,
-        )
-        k1_first = sc[:, 0] > 0.5
-        looping1 = sc[:, 2] > 0.5
-        rnorm = sc[:, 3]
-
-        if kernel_tau:
-            # geometric backtracking by RE-INVOKING the fused kernel at
-            # per-lane shrunken tau — everything stays in the packed layout
-            # (the earlier unpack/backtrack-per-op/pack cond branch made XLA
-            # pick a transposed {0,2,1} carry layout: 6.4x padded buffers
-            # plus layout-conversion copies around every pallas call,
-            # measured +7 ms/iteration on chip).  Retrial phases 1-2 are
-            # idempotent recomputation (z unchanged); only the candidate
-            # phase sees the new tau.  sp.jl:371's tau <- beta tau.
-            def bt_cond(st):
-                return jnp.any(st["looping"]) & (
-                    st["bt"] <= opts.max_backtracks
-                )
-
-            def bt_body(st):
-                z2, _w2, _r2, s2, _y2, _p2, sc2 = step(
-                    st["looping"], jnp.zeros((B,), bool), st["r_safe"],
-                    c.rnorm_c, c.nMrz_c, c.nMrv_c, st["tau"],
-                )
-                k1 = sc2[:, 0] > 0.5
-                k2 = sc2[:, 1] > 0.5
-                acc = st["looping"] & (k1 | k2)
-                zf = tuple(
-                    jnp.where(
-                        pallas_spstep.lane_mask(acc, z2[i]), z2[i],
-                        st["zf"][i],
-                    )
-                    for i in range(3)
-                )
-                sf = tuple(
-                    jnp.where(
-                        pallas_spstep.lane_mask(acc, s2[i]), s2[i],
-                        st["sf"][i],
-                    )
-                    for i in range(3)
-                )
-                looping = st["looping"] & (sc2[:, 2] > 0.5)
-                return dict(
-                    zf=zf,
-                    sf=sf,
-                    r_safe=jnp.where(acc, sc2[:, 5], st["r_safe"]),
-                    xi1=jnp.where(acc, sc2[:, 6], st["xi1"]),
-                    xi2=jnp.where(acc, sc2[:, 7], st["xi2"]),
-                    looping=looping,
-                    tau=jnp.where(looping, st["tau"] * opts.beta,
-                                  st["tau"]),
-                    bt=st["bt"] + 1,
-                )
-
-            st = jax.lax.while_loop(
-                bt_cond,
-                bt_body,
-                dict(
-                    zf=z_new, sf=s, r_safe=sc[:, 5], xi1=sc[:, 6],
-                    xi2=sc[:, 7], looping=looping1,
-                    tau=jnp.full((B,), opts.beta, dtype),
-                    bt=jnp.ones((), jnp.int32),
-                ),
-            )
-            z_fin, s_fin = st["zf"], st["sf"]
-            r_safe_f, xi1, xi2, btc = (
-                st["r_safe"], st["xi1"], st["xi2"], st["bt"]
-            )
-        else:
-            # lane-tiled fallback kernel (SPOCK_LANE_PACK=0): backtracking
-            # via the per-op megakernels on unpacked iterates
-            def no_bt(_):
-                return (z_new, s, sc[:, 5], sc[:, 6], sc[:, 7],
-                        jnp.ones((), jnp.int32))
-
-            def with_bt(_):
-                zz, vv = pallas_spstep.unpack_pair(meta, c.zv)
-                g0, g1, g2 = sc[:, 10], sc[:, 11], sc[:, 12]
-
-                def dcls(rc, pc, p1c, p2c):
-                    return (
-                        -rc
-                        - pallas_spstep.lane_rows(g0, rc) * pc
-                        - pallas_spstep.lane_rows(g1, rc) * p1c
-                        - pallas_spstep.lane_rows(g2, rc) * p2c
-                    )
-
-                d_trio = tuple(
-                    dcls(r[i], p[i], c.MP[a1][i], c.MP[a2][i])
-                    for i in range(3)
-                )
-                dz, dv = pallas_spstep.unpack_pair(meta, d_trio)
-                z_a, v_a = pallas_spstep.unpack_pair(meta, z_new)
-                candidate = _make_candidate(
-                    data, meta, c.x0, zz, vv, dz, dv, rnorm, q_pow, opts,
-                    gamma, sigma,
-                )
-                bt = _run_backtracks(
-                    candidate, opts, looping1, z_a, v_a, sc[:, 5],
-                    sc[:, 6], sc[:, 7], dtype,
-                )
-                znf = pallas_spstep.pack_pair(meta, bt.z_acc, bt.v_acc)
-                snf = tuple(
-                    jnp.where(
-                        pallas_spstep.lane_mask(active, znf[i]),
-                        znf[i] - c.zv[i], c.s_prev[i],
-                    )
-                    for i in range(3)
-                )
-                return znf, snf, bt.r_safe, bt.xi1, bt.xi2, bt.bt
-
-            z_fin, s_fin, r_safe_f, xi1, xi2, btc = jax.lax.cond(
-                jnp.any(looping1), with_bt, no_bt, None
-            )
-
-        conv, res0 = check_termination(xi1, xi2, c.res0, tol)
-        cache_valid = k1_first | c.done | conv
-        MR = tuple(y if j == phase else c.MR[j] for j in range(m))
-        MP = tuple(p if j == phase else c.MP[j] for j in range(m))
-        hist = c.hist
-        if record:
-            bts = jnp.broadcast_to((btc - 1).astype(dtype), xi1.shape)
-            hist = hist.at[c.it].set(jnp.stack([xi1, xi2, bts], axis=-1))
-        return SPCarryF(
-            x0=c.x0,
-            zv=z_fin,
-            cache=w,
-            r_prev=r,
-            s_prev=s_fin,
-            MR=MR,
-            MP=MP,
-            r_safe=jnp.where(active, r_safe_f, c.r_safe),
-            res0=jnp.where(active[:, None], res0, c.res0),
-            done=c.done | (conv & active),
-            niter=c.niter + active.astype(jnp.int32),
-            xi1=jnp.where(active, xi1, c.xi1),
-            xi2=jnp.where(active, xi2, c.xi2),
-            it=c.it + 1,
-            hist=hist,
-            cache_valid=cache_valid,
-            rnorm_c=sc[:, 4],  # candidate rtilde == next rnorm when cached
-            nMrz_c=sc[:, 8],
-            nMrv_c=sc[:, 9],
-        )
-
-    return body
-
-
 def run_supermann(
     data: ProblemData,
     meta: ProblemMeta,
@@ -841,40 +510,6 @@ def run_supermann(
     record: bool = False,
     constrain=None,
 ) -> SolveResult:
-    if use_fused_step(data, meta, opts, constrain):
-        from ..ops import pallas_spstep
-
-        init = sp_init_fused(
-            meta, x0, z0, v0, opts, max_iter=max_iter, record=record
-        )
-        bodies = [
-            sp_body_fused(
-                data, meta, tol, opts, phase=ph, max_iter=max_iter,
-                gamma=gamma, sigma=sigma, record=record,
-            )
-            for ph in range(3)
-        ]
-
-        def body3(c: SPCarryF) -> SPCarryF:
-            for b in bodies:
-                c = b(c)
-            return c
-
-        def condf(c: SPCarryF):
-            return (~jnp.all(c.done)) & (c.it < max_iter)
-
-        out = jax.lax.while_loop(condf, body3, init)
-        z, v = pallas_spstep.unpack_pair(meta, out.zv)
-        return SolveResult(
-            z=z,
-            v=v,
-            iterations=out.niter,
-            status=jnp.where(out.done, 0, 1).astype(jnp.int32),
-            xi1=out.xi1,
-            xi2=out.xi2,
-            residuals=out.hist if record else None,
-        )
-
     init = sp_init(meta, x0, z0, v0, opts, max_iter=max_iter, record=record)
     body = sp_body(
         data, meta, tol, opts, gamma=gamma, sigma=sigma, record=record,

@@ -46,19 +46,31 @@ def _nonleaf_perm(t: UniformTree) -> np.ndarray:
     return perm
 
 _LIB = None
+NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "native",
+)
+
+
+def ensure_built() -> str:
+    """Path of ``libspock_cpu.so`` in ``NATIVE_DIR``, (re)built by
+    ``build.sh`` when it is missing or older than ``spock_cpu.cpp``.  The
+    library is never committed: it is compiled for the host that runs it."""
+    so = os.path.join(NATIVE_DIR, "libspock_cpu.so")
+    src = os.path.join(NATIVE_DIR, "spock_cpu.cpp")
+    if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
+        subprocess.run(
+            ["sh", os.path.join(NATIVE_DIR, "build.sh")], check=True,
+            stdout=subprocess.DEVNULL,
+        )
+    return so
 
 
 def _lib():
     global _LIB
     if _LIB is not None:
         return _LIB
-    root = os.path.dirname(os.path.dirname(os.path.dirname(__file__)))
-    so = os.path.join(root, "native", "libspock_cpu.so")
-    if not os.path.exists(so):
-        subprocess.run(
-            ["sh", os.path.join(root, "native", "build.sh")], check=True
-        )
-    lib = ctypes.CDLL(so)
+    lib = ctypes.CDLL(ensure_built())
     dp = ctypes.POINTER(ctypes.c_double)
     ip = ctypes.POINTER(ctypes.c_int32)
     argtypes = (

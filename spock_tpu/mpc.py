@@ -8,7 +8,7 @@ iterate (the reference does this implicitly by keeping z/v in the model
 struct; here the state is threaded explicitly through ``lax.scan``).
 
 Everything is batched: B independent plants/solvers advance in lockstep —
-this is the unit of TPU parallelism.
+the lane axis is the unit of device parallelism.
 """
 
 from __future__ import annotations
@@ -126,19 +126,17 @@ jax.tree_util.register_dataclass(
 )
 
 
-@partial(jax.jit, static_argnames=("meta", "opts", "fused"))
+@partial(jax.jit, static_argnames=("meta", "opts"))
 def _simulate_async_jit(
     data: ProblemData,
     meta: ProblemMeta,
     ws,
     tol,
     n_steps,  # DYNAMIC [] int32 — one compiled program serves any step
-    #           count <= ws.shape[0] (remote TPU compiles of this program
-    #           are the expensive thing; records are sized by ws)
+    #           count <= ws.shape[0] (records are sized by ws)
     opts: sp_alg.SuperMannOpts,
     iter_budget,
     init,
-    fused: bool = False,
 ):
     """Receding-horizon MPC where every lane advances its own chain the
     moment its solve converges — no batch-level straggler barrier.
@@ -153,17 +151,7 @@ def _simulate_async_jit(
 
     x0: [B, nx]; ws: [T, B] realization indices; n_steps: MPC steps per lane.
     """
-    if fused:
-        # one fused Pallas launch per iteration; 3 history phases unrolled
-        # (the farm never hits a per-solve max_iter — budgeted globally)
-        bodies = [
-            sp_alg.sp_body_fused(
-                data, meta, tol, opts, phase=ph, max_iter=2**30
-            )
-            for ph in range(3)
-        ]
-    else:
-        bodies = [sp_alg.sp_body(data, meta, tol, opts)]
+    body = sp_alg.sp_body(data, meta, tol, opts)
     B = init["step_idx"].shape[0]
     lane_ids = jnp.arange(B)
 
@@ -172,11 +160,11 @@ def _simulate_async_jit(
             st["total"] < iter_budget
         )
 
-    def advance(st, body):
+    def advance(st):
         sp = body(st["sp"])
         # lanes whose current solve just converged and still have steps to do
         fin = sp.done & (st["step_idx"] < n_steps)
-        u0 = sp_alg.root_u_carry(meta, sp)
+        u0 = sp.z.u[:, :, 0]
         # record
         iters_rec = st["iters_rec"].at[st["step_idx"], lane_ids].add(
             jnp.where(fin, sp.niter, 0)
@@ -217,17 +205,14 @@ def _simulate_async_jit(
             # a lane that advanced has a new x0 — its cached sweep (which
             # pins x_root = x0 inside prox_f) no longer matches
             cache_valid=sp.cache_valid & ~fin,
+            eta=jnp.where(fin, jnp.inf, sp.eta),
         )
-        if not fused:
-            repl["eta"] = jnp.where(fin, jnp.inf, sp.eta)
-            if opts.direction == "broyden":
-                def lane_reset(a):
-                    m = fin.reshape(fin.shape + (1,) * (a.ndim - 1))
-                    return jnp.where(m, jnp.zeros_like(a), a)
+        if opts.direction == "broyden":
+            def lane_reset(a):
+                m = fin.reshape(fin.shape + (1,) * (a.ndim - 1))
+                return jnp.where(m, jnp.zeros_like(a), a)
 
-                repl["dirstate"] = jax.tree_util.tree_map(
-                    lane_reset, sp.dirstate
-                )
+            repl["dirstate"] = jax.tree_util.tree_map(lane_reset, sp.dirstate)
         sp = dataclasses.replace(sp, **repl)
         return dict(
             sp=sp,
@@ -237,26 +222,15 @@ def _simulate_async_jit(
             total=st["total"] + 1,
         )
 
-    def loop(st):
-        for body in bodies:
-            st = advance(st, body)
-        return st
-
-    out = jax.lax.while_loop(cond, loop, init)
-    if fused:
-        from .ops import pallas_spstep
-
-        z_fin, v_fin = pallas_spstep.unpack_pair(meta, out["sp"].zv)
-    else:
-        z_fin, v_fin = out["sp"].z, out["sp"].v
+    out = jax.lax.while_loop(cond, advance, init)
     res = AsyncMPCResult(
         steps_done=out["step_idx"],
         iters_per_step=out["iters_rec"],
         us=out["us_rec"],
         xs=out["sp"].x0,
         total_iterations=out["total"],
-        z=z_fin,
-        v=v_fin,
+        z=out["sp"].z,
+        v=out["sp"].v,
     )
     return res, out
 
@@ -278,8 +252,8 @@ def simulate_async(
     """Host wrapper around the jitted farm.
 
     iters_per_launch > 0 chunks the device while_loop into bounded launches
-    (the carry round-trips through jit boundaries, not the host) — needed on
-    backends that watchdog long single executions; 0 = one launch.
+    (the carry round-trips through jit boundaries, not the host; the host
+    checks for completion between launches); 0 = one launch.
     resume: opaque state from a previous call (continues the same farm).
     """
     B = x0.shape[0]
@@ -287,18 +261,13 @@ def simulate_async(
     ws = jnp.asarray(ws)
     assert n_steps <= ws.shape[0], (n_steps, ws.shape)
     n_steps_a = jnp.asarray(n_steps, jnp.int32)
-    fused = sp_alg.use_fused_step(data, meta, opts)
     if resume is None:
         if z0 is None:
             z0 = zero_primal(meta, (B,), dtype)
         if v0 is None:
             v0 = zero_dual(meta, (B,), dtype)
-        if fused:
-            sp0 = sp_alg.sp_init_fused(meta, x0, z0, v0, opts)
-        else:
-            sp0 = sp_alg.sp_init(meta, x0, z0, v0, opts)
         state = dict(
-            sp=sp0,
+            sp=sp_alg.sp_init(meta, x0, z0, v0, opts),
             step_idx=jnp.zeros((B,), jnp.int32),
             # records sized by ws (static), indexed up to n_steps (dynamic):
             # one compiled program serves every phase of a bench run
@@ -312,7 +281,7 @@ def simulate_async(
     if iters_per_launch <= 0:
         res, state = _simulate_async_jit(
             data, meta, ws, tol, n_steps_a, opts,
-            jnp.asarray(max_total_iters, jnp.int32), state, fused=fused,
+            jnp.asarray(max_total_iters, jnp.int32), state,
         )
         return res
 
@@ -322,7 +291,7 @@ def simulate_async(
             jnp.asarray(max_total_iters, jnp.int32),
         )
         res, state = _simulate_async_jit(
-            data, meta, ws, tol, n_steps_a, opts, budget, state, fused=fused
+            data, meta, ws, tol, n_steps_a, opts, budget, state
         )
         jax.block_until_ready(res.steps_done)
         if bool(

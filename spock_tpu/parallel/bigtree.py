@@ -6,7 +6,7 @@ node axis of every iterate is split across a ``Mesh(..., ("node",))`` so the
 dominant leaf-heavy stages live in distributed memory and the elementwise
 prox/update work executes shard-locally.  Stage-boundary data movement
 (parent<->child regrouping of the sibling-major layout) lowers to XLA
-collectives over ICI.
+collectives between devices.
 
 GSPMD only shards evenly-divisible dimensions, and tree stage sizes are
 powers of d — so the sharded carry holds a **node-padded** copy of each leaf
@@ -159,7 +159,7 @@ def run_cp_sharded(
 def _comm_stats(jitted, *args) -> dict:
     """Collective count/bytes of the compiled sharded program (the
     quantitative communication-volume side of the node-sharding story —
-    virtual meshes can measure program structure even without ICI)."""
+    counted from the compiled program, so virtual meshes measure it too)."""
     from ..utils.profiling import hlo_collective_stats
 
     compiled = jitted.lower(*args).compile()

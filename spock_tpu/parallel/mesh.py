@@ -1,12 +1,12 @@
 """Multi-chip / multi-host scaling of batched solves.
 
-The reference is single-process single-thread (SURVEY.md §2.2); the TPU
-build's distribution model is:
+The reference is single-process single-thread (SURVEY.md §2.2); this
+package's distribution model is:
 
 * **dp axis ("batch")** — independent MPC solves sharded across chips.  Each
   lane's solve state never leaves its shard; the only cross-chip traffic is
   the all-lanes-done reduction inside the termination while_loop, which XLA
-  lowers to an ICI all-reduce automatically under jit-with-shardings.
+  lowers to an all-reduce (NCCL over NVLink on GPUs) automatically under jit-with-shardings.
 * **node axis** — for single trees too large for one chip, the stage-major
   node dimension of every iterate is sharded over a "node" mesh axis
   (:func:`shard_nodes`): the dominant leaf-heavy stages split across
@@ -17,8 +17,9 @@ build's distribution model is:
   ``with_sharding_constraint`` (:func:`node_constrainer`).
 
 Multi-host: call :func:`init_distributed` once per process, then build the
-mesh over ``jax.devices()`` as usual — DCN-backed collectives are inserted by
-XLA where the mesh spans hosts.
+mesh over ``jax.devices()`` as usual — XLA inserts the cross-host
+collectives where the mesh spans hosts.  Every device reaches every other,
+so meshes are 1-D and follow the algorithm, not a network topology.
 """
 
 from __future__ import annotations

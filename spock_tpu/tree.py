@@ -1,10 +1,10 @@
 """Scenario-tree topology for uniform branching factor, in closed form.
 
-TPU-first design note
----------------------
+Layout note
+-----------
 The reference (``/root/reference/src/scenario_tree.jl:25-109``) stores the tree
 as dictionaries ``child_mapping``/``anc_mapping`` plus per-node index records.
-On TPU we instead exploit the *algebraic* structure of a uniform-branching tree
+We instead exploit the *algebraic* structure of a uniform-branching tree
 laid out stage-major with a **sibling-major order inside each stage**:
 
 * node indices are 0-based; the root is node ``0``;
@@ -19,8 +19,8 @@ laid out stage-major with a **sibling-major order inside each stage**:
 Consequence: *every* parent/child data movement is a contiguous slice or
 reshape of the node axis — ``children-of-stage`` grouping is
 ``block.reshape(d, m)``, parent replication is ``concat([parents] * d)``.
-No gathers, no stride-d lane access, and no [., n, d]-shaped temporaries
-(whose tiny minor dim would pad to 128 TPU lanes).
+No gathers, no strided access, and no [., n, d]-shaped temporaries with a
+tiny minor dimension.
 
 This ordering differs from the reference's interleaved one (reference:
 child k of parent i at stage-local ``i*d + k`` — ``scenario_tree.jl:83-87``);

@@ -2,7 +2,7 @@
 
 The reference packs everything into two flat vectors ``z`` (primal) and ``v``
 (dual) with hand-maintained offset tables (``implicit_l.jl:5-44,106-158``).
-On TPU we keep the iterates *structured* — a pytree of stage-major node
+We keep the iterates *structured* — a pytree of stage-major node
 arrays — so that every operator block is a dense tensor op and XLA fuses the
 elementwise glue.  Flattening to the reference's vector layout is provided
 only for tests / oracle comparison (:mod:`spock_tpu.utils.refvec`).
@@ -33,9 +33,8 @@ class Primal:
     """Primal iterate z = (x, u, s, tau, y).
 
     Shapes (event part) — FEATURE-MAJOR: the node axis is always LAST so the
-    (large, power-of-two-able) node dimension sits in the TPU lane dimension;
-    feature dims (nx ~ 2..50) sit in sublanes.  Node-major layouts would pad
-    the minor feature dim to 128 lanes — a ~6x memory/bandwidth tax.
+    (large) node dimension is the contiguous minor dimension and the small
+    feature dims (nx ~ 2..50) are strided over it.
 
       x:   [nx, n]          — state at every node.
       u:   [nu, n_nonleaf]  — input at every non-leaf node.
